@@ -1,4 +1,4 @@
-"""irotavg_tpu — a TPU-native rotation-averaging SLAM framework.
+"""irotavg_tpu — an accelerator-native rotation-averaging SLAM framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of iRotAvg
 (Parra, Chin, Eriksson, Reid — "Visual SLAM: Why bundle adjust?", ICRA 2019):
@@ -9,10 +9,10 @@ Design stance (vs. the C++ reference at ajparra/iRotAvg):
   * array-native: the view graph is a struct-of-arrays (padded edge lists,
     quaternion tables, weight vectors), not pointer-chased objects;
   * batched: frames, descriptors, matches, and RANSAC hypotheses carry a
-    leading batch axis and are processed on the MXU/VPU;
+    leading batch axis and are processed as dense array programs;
   * compiled: every hot loop is `jit`-compatible (static shapes, lax control
-    flow) and the inner linear algebra runs as dense batched Cholesky on the
-    MXU or as a matrix-free preconditioned CG whose SpMV is a segment-sum;
+    flow) and the inner linear algebra runs as dense batched Cholesky or as
+    a matrix-free preconditioned CG whose SpMV is a segment-sum;
   * distributed: large graphs shard over a `jax.sharding.Mesh` with `psum`
     reductions inside `shard_map` (no reference equivalent — the C++ code is
     single-threaded).

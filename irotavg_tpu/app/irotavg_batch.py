@@ -10,7 +10,7 @@ Accepts the reference's file formats unchanged (ORB-SLAM YAML, DBoW2 text
 vocabulary) and writes the same ``rotavg_poses.txt`` /
 ``rotavg_poses_ids.txt`` outputs (src/ViewGraph.cpp:1206-1231,
 src/IRotAvg.cpp:111-128).  The incremental CLI (`app/irotavg.py`) is the
-behavioural-parity path; this one is the TPU-throughput path — the
+behavioural-parity path; this one is the throughput path — the
 reference has no equivalent mode.
 """
 

@@ -13,8 +13,8 @@ Pipeline: parse problem -> (f==0: pin identity, f=1) -> init_mst seeded
 with max(#abs_given, f) protected rows (ral/test.cpp:284-286) -> L1-RA ->
 IRLS -> normalise -> write rotations then weights (ral/test.cpp:314-326).
 
-Runs in float64 (the solver's golden-accuracy mode); forces the local
-backend so a missing TPU never blocks the batch tool.
+Runs in float64 (the solver's golden-accuracy mode, like the reference's
+double-precision SuiteSparse pipeline) on JAX's default backend.
 """
 
 from __future__ import annotations
@@ -34,20 +34,12 @@ def main(argv=None) -> int:
         )
         return 1
 
-    import os
-
     from irotavg_tpu.utils.cache import enable_persistent_cache
 
     enable_persistent_cache()
 
     import jax
 
-    # Default to the host CPU: the solver runs in float64 for golden
-    # accuracy (the reference is a double-precision SuiteSparse pipeline)
-    # and f64 on TPU is emulated.  Override with IROTAVG_PLATFORM=tpu to
-    # force the accelerator (f32 there is usually fine — see bench.py).
-    jax.config.update("jax_platforms",
-                      os.environ.get("IROTAVG_PLATFORM", "cpu"))
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import numpy as np

@@ -2,7 +2,7 @@
 
 The incremental product shape is thousands of small solves: every accepted
 keyframe triggers ``rotAvg(10)`` (src/IRotAvg.cpp:371-378), a ~16-node /
-~40-edge problem.  One such window cannot fill the MXU — the n^2 Cholesky
+~40-edge problem.  One such window cannot fill the device — the n^2 Cholesky
 at n=32 is latency-bound — but a *batch* of them can: `vmap` over the
 window axis turns the per-window Cholesky into one batched
 (W, n_pad, n_pad) factorisation and every elementwise stage into (W, m)

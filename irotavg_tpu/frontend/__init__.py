@@ -1,6 +1,6 @@
 """L3a — vision front-end: ORB extraction, frames, camera model.
 
-TPU re-design of src/ORBExtractor.cpp, src/Frame.cpp, src/Camera.cpp:
+Array-program re-design of src/ORBExtractor.cpp, src/Frame.cpp, src/Camera.cpp:
 the whole 8-level pyramid extraction compiles to a single XLA program per
 image size (score maps + blocked reductions instead of per-cell loops);
 frames are fixed-capacity arrays with validity masks.

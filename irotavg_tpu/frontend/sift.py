@@ -7,7 +7,7 @@ the float descriptors (src/ViewGraph.cpp:694-722).  This module provides
 the same capability as one compiled XLA program per image size:
 
 * Gaussian scale space: per octave, ``s+3`` separable blurs; DoG stack as
-  slice differences — all dense convolutions (VPU/MXU friendly).
+  slice differences — all dense convolutions (dense array friendly).
 * Keypoints: 26-neighbour extrema of the DoG stack, contrast threshold,
   2x2-Hessian edge rejection — dense masks, then per-octave top-K by |DoG|
   so every frame yields the same static shapes (pad + `valid` mask).

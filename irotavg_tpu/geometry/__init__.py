@@ -1,9 +1,9 @@
 """L4 two-view geometry: batched essential-matrix RANSAC + pose recovery.
 
 Replaces the reference's cv::findEssentialMat(RANSAC)/cv::recoverPose calls
-(src/ViewGraph.cpp:600-650) with TPU-native batched linear algebra: minimal
-samples are a leading batch axis, hypothesis solves are batched 9x9 eigh on
-the MXU, Sampson scoring is one dense (S, N) reduction, and cheirality runs
+(src/ViewGraph.cpp:600-650) with batched linear algebra: minimal
+samples are a leading batch axis, hypothesis solves are batched closed-form
+null vectors, Sampson scoring is one dense (S, N) reduction, and cheirality runs
 all four (R, t) decompositions over all points at once.
 """
 

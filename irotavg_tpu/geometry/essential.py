@@ -10,9 +10,9 @@ minimal samples (vs OpenCV's adaptive-count Nister 5-point) — the whole
 hypothesis batch solves in one device program, and S is sized for inlier
 ratios well below SLAM operating points.
 
-TPU numerics: XLA lowers `eigh`/`svd` to iterative QR programs that are
-expensive at these shapes, so the hot decompositions are closed-form /
-fixed-sweep primitives that lower to elementwise ops and tiny matmuls:
+Numerics: XLA lowers `eigh`/`svd` to iterative programs, so the hot
+decompositions are closed-form / fixed-sweep primitives that lower to
+elementwise ops and tiny matmuls:
 
   * symmetric 3x3 eigendecomposition: five unrolled cyclic-Jacobi sweeps
     (`_sym3x3_jacobi`) — exact to f32 precision in <= 15 rotations;
@@ -23,9 +23,8 @@ fixed-sweep primitives that lower to elementwise ops and tiny matmuls:
     the dominant cost (a (4, N) batch of eigh per recover_pose);
   * minimal-sample 8-point null vectors: unrolled batched Householder QR
     of the Hartley-normalised (8, 9) design (`_nullvec_qr8`) — exact for
-    rank-8 samples, pure VPU ops.  XLA's batched `eigh` lowers to an
-    `EighTpu` custom call costing ~60 ms per (4k, 9, 9) batch; it
-    dominated the whole pair-estimation program before this change.
+    rank-8 samples, elementwise ops only, in place of a batched `eigh`
+    over every (9, 9) hypothesis.
   * the ONE iterative op kept is `eigh` on the single per-pair (9, 9)
     Gram matrix of the all-inlier refit (`_eight_point` + `_solve_gram`),
     where the system is genuinely least-squares (rank > 8) and the batch
@@ -52,17 +51,15 @@ def _jacobi_rotation(A, V, p: int, q: int):
     """One batched Jacobi rotation zeroing A[..., p, q] (symmetric A).
 
     The update is expressed as dense Givens products ``G^T A G`` / ``V G``
-    rather than `.at[].set()` column writes: each scatter lowers to a
-    dynamic-update-slice on TPU, and the 90 of them per eigensolve were
-    ~75% of the whole pair-estimation program's device time (measured
-    179 ms of a 206 ms while-loop).  The 3x3 einsums fuse to pure VPU
-    elementwise work.
+    rather than `.at[].set()` column writes, so the 90 rotations per
+    eigensolve fuse into elementwise 3x3 einsums instead of one
+    dynamic-update-slice each.
     """
     app = A[..., p, p]
     aqq = A[..., q, q]
     apq = A[..., p, q]
     # algebraic Givens parameters (Golub & Van Loan 8.4): no arctan2/sin/
-    # cos — the transcendental path was another ~25 ms per program here
+    # cos transcendentals
     nz = jnp.abs(apq) > 1e-30
     tau = (aqq - app) / (2.0 * jnp.where(nz, apq, 1.0))
     t = -jnp.sign(tau) / (jnp.abs(tau) + jnp.sqrt(1.0 + tau * tau))
@@ -162,8 +159,8 @@ def sampson_distance(E, p1, p2):
     points; broadcasts E's leading axes -> (..., N)."""
     x1 = jnp.concatenate([p1, jnp.ones_like(p1[:, :1])], axis=1)  # (N, 3)
     x2 = jnp.concatenate([p2, jnp.ones_like(p2[:, :1])], axis=1)
-    # full f32 accumulation: TPU matmuls default to bf16 inputs, which is
-    # far too coarse for epipolar residuals compared against (px/f)^2
+    # full f32 products: a reduced-precision default (bf16 or TF32 inputs)
+    # is far too coarse for epipolar residuals compared against (px/f)^2
     hp = jax.lax.Precision.HIGHEST
     Ex1 = jnp.einsum("...ij,nj->...ni", E, x1, precision=hp)
     Etx2 = jnp.einsum("...ji,nj->...ni", E, x2, precision=hp)
@@ -272,10 +269,9 @@ def _nullvec_qr8(A):
     unrolled Householder QR of A^T.
 
     Every operation is an elementwise/broadcast op over the batch — no
-    iterative eigensolver.  XLA's batched 9x9 ``eigh`` on TPU lowers to an
-    `EighTpu` custom call costing ~60 ms per (4k, 9, 9) batch (measured:
-    it was 65% of the whole pair-estimation program); this closed form is
-    exact for rank-8 samples and runs on the VPU in microseconds.
+    iterative eigensolver: in place of XLA's batched 9x9 ``eigh``, this
+    closed form is exact for rank-8 samples and is elementwise work over
+    the batch.
 
     Rank-deficient samples get *a* unit vector from the null space —
     the same arbitrary-direction contract a float eigh gives — and the
@@ -601,7 +597,7 @@ def ransac_essential(p1, p2, valid, key, *, th_norm, n_samples=1024,
     cv::findEssentialMat at src/ViewGraph.cpp:629, enforces the
     essential structure inside its solver and is immune).  Instead of a
     5-point polynomial solver (10th-degree root finding — hostile to
-    batched TPU execution), a parallel 4-point homography RANSAC runs on
+    batched execution), a parallel 4-point homography RANSAC runs on
     the same draws, and the best H's Faugeras decomposition contributes
     its 8 motion hypotheses ``E = [t]x R`` to the candidate pool: for a
     plane-induced H these contain the *exact* camera motion, and the
@@ -621,9 +617,8 @@ def ransac_essential(p1, p2, valid, key, *, th_norm, n_samples=1024,
     nv = jnp.maximum(cs[-1], 1)
     ranks = jax.random.randint(key, (n_samples, 8), 0, nv)
     # rank -> position: count of cumsum entries <= rank.  One dense
-    # compare-reduce (S*8 x N on the VPU) instead of jnp.searchsorted,
-    # whose binary-search while_loop + scatter lowering dominated the
-    # non-eigh time of this function on TPU.
+    # compare-reduce (S*8 x N) instead of jnp.searchsorted, whose
+    # binary-search while_loop + scatter lowering is serial work.
     idx = jnp.sum(cs[None, None, :] <= ranks[..., None], axis=-1)
 
     E_cand = _eight_point_samples(p1, p2, idx)  # (S, 3, 3)

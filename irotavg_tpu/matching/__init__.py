@@ -1,4 +1,4 @@
-"""L4 matching primitives (src/ViewGraph.cpp:125-569, TPU re-design).
+"""L4 matching primitives (src/ViewGraph.cpp:125-569, array re-design).
 
 Each reference matcher walks candidate lists per keypoint (BoW-node
 buckets, epipolar gating, spatial-grid windows).  Here every matcher is

@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from irotavg_tpu.ops.match_pallas import (
+from irotavg_tpu.ops.hamming import (
     best2, make_colft, make_rowf, unpack_pm1,
 )
 
@@ -42,10 +42,10 @@ _BIG = 10_000
 
 
 def _best_two(bits1, bits2t, rowf, colft, gate):
-    """Per-row best/second distances + best index over gated columns —
-    fused Pallas sweep on TPU, dense jnp on CPU (ops/match_pallas.py).
-    Distances come back as exact integers in f32; downstream logic uses
-    int32 (the conflict-resolution key needs integer arithmetic)."""
+    """Per-row best/second distances + best index over gated columns
+    (ops/hamming.py).  Distances come back as exact integers in f32;
+    downstream logic uses int32 (the conflict-resolution key needs integer
+    arithmetic)."""
     d1, d2, best_idx = best2(bits1, bits2t, rowf, colft, gate)
     return (d1.astype(jnp.int32), d2.astype(jnp.int32),
             best_idx.astype(jnp.int64))
@@ -244,7 +244,7 @@ def _match_sift_core(d1, valid1, d2t, valid2):
     # scale here so the reference's absolute threshold keeps its meaning.
     a = d1 * 512.0
     b = d2t * 512.0
-    # squared L2 via one MXU matmul: |a|^2 + |b|^2 - 2 a.b
+    # squared L2 via one matrix product: |a|^2 + |b|^2 - 2 a.b
     dist2 = (
         jnp.sum(a * a, axis=1)[:, None]
         + jnp.sum(b * b, axis=0)[None, :]
@@ -265,7 +265,7 @@ def match_sift(f1, f2):
     """Nearest-neighbour L2 matching of SIFT descriptors with the
     reference's good-match filter ``d <= max(3*min_d, 80.0)`` —
     `findSIFTMatches` (src/ViewGraph.cpp:694-722; FLANN there, one exact
-    MXU distance matmul here).  Returns a (N1,) assignment vector."""
+    distance matrix product here).  Returns a (N1,) assignment vector."""
     m12, _ = _match_sift_core(
         jnp.asarray(f1.desc, jnp.float32), _dev(f1, "valid"),
         jnp.asarray(f2.desc, jnp.float32).T, _dev(f2, "valid"),

@@ -1,7 +1,7 @@
 // Host-side native kernels for irotavg_tpu (C API, loaded via ctypes).
 //
 // The reference implements its whole host runtime in C++; the pieces that
-// stay host-side in the TPU build and are hot enough to matter are
+// stay host-side in this build and are hot enough to matter are
 // implemented here:
 //
 //  * vocab_parse    — DBoW2 text-vocabulary reader.  The ORB-SLAM

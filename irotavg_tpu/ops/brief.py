@@ -8,7 +8,7 @@ I(p_{2j+1})``.  Bits are packed little-endian within bytes (bit k of byte
 i compares points 16i+2k, 16i+2k+1), stored here as 8 uint32 words per
 descriptor — word w holds bytes 4w..4w+3, byte b at bit offset 8*(b%4).
 
-The TPU re-design samples all 512 rotated pattern points of all keypoints
+The array re-design samples all 512 rotated pattern points of all keypoints
 with one gather from per-keypoint patches: rotated offsets never exceed
 round(max pattern radius) <= 18 px, so a (K, 41, 41) patch gather (radius
 20) covers every rotation.

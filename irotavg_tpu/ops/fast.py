@@ -2,7 +2,7 @@
 
 Re-design of the per-cell OpenCV FAST calls in the reference
 (src/ORBExtractor.cpp:790-878): instead of looping 30x30-px cells, compute
-the corner *score map* for the whole level at once on the VPU — 16 shifted
+the corner *score map* for the whole level at once — 16 shifted
 copies of the image, bright/dark arc tests via windowed minima — then apply
 3x3 non-max suppression and the per-cell two-threshold fallback as blocked
 reductions.

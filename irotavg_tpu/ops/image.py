@@ -61,15 +61,11 @@ def _band_matrix(n: int, kernel_bytes: bytes) -> np.ndarray:
 
 
 def _sep_blur(img, k: np.ndarray):
-    """Separable blur as two banded-matrix MXU matmuls.
+    """Separable blur as two banded-matrix matmuls.
 
-    The shift-and-add formulation (7 lane-offset dynamic slices per
-    pass) materialised an unfused full-image copy per tap and was
-    HBM-bound — measured 5.2 ms/frame across the 8-level pyramid,
-    ~90% of the whole extraction program.  A 7-diagonal band matrix
-    per axis turns each pass into one dense matmul the MXU eats
-    (~0.4 GFLOP/frame), with the REFLECT_101 boundary folded into the
-    matrix.  HIGHEST precision keeps f32 accuracy so the rounded
+    A 7-diagonal band matrix per axis turns each pass into one dense
+    matmul (~0.4 GFLOP/frame at 640x480) in place of 7 shifted slices
+    per pass, with the REFLECT_101 boundary folded into the matrix.  HIGHEST precision keeps f32 accuracy so the rounded
     blurred image matches the reference's uint8 blur bit-for-bit
     (modulo ties) for descriptor parity (src/ORBExtractor.cpp:1111).
     """

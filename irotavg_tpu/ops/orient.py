@@ -6,8 +6,8 @@ m01 = sum v*I over the radius-15 discretised disc, angle = atan2(m01, m10).
 (The reference uses cv::fastAtan2, a <=0.3 deg approximation; we use exact
 atan2 — divergence is far below descriptor-bit sensitivity.)
 
-The TPU re-design computes moments for all keypoints at once from gathered
-(31, 31) patches — three masked reductions on the VPU instead of a
+The array re-design computes moments for all keypoints at once from gathered
+(31, 31) patches — three masked reductions instead of a
 per-keypoint scalar loop.
 """
 

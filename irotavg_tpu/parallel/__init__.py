@@ -5,7 +5,7 @@ The scaling axis here is *graph parallelism*: edges of the view graph are
 sharded across devices; absolute rotations (nodes) are replicated.  Each
 device computes residuals / Laplacian partials on its edge block and the
 normal-equation reduction is a single `psum` over the mesh axis — the
-TPU-native analogue of a distributed PCG.
+array-native analogue of a distributed PCG.
 """
 
 from irotavg_tpu.parallel.sharded import (  # noqa: F401

@@ -1,4 +1,4 @@
-"""Edge-sharded IRLS rotation averaging (`shard_map` + `psum` over ICI).
+"""Edge-sharded IRLS rotation averaging (`shard_map` + `psum`).
 
 Partitioning scheme
 -------------------
@@ -8,36 +8,25 @@ Partitioning scheme
   edge-local.
 * ``Q/node_mask/rhs/x`` — replicated.  Node state is tiny ((n,4) floats)
   next to the edge data, so replicating it and reducing partials with one
-  ``psum`` per matvec keeps every collective on ICI and avoids any gather
-  of remote edge data.
+  ``psum`` per matvec is the only collective (an NCCL all-reduce on GPUs)
+  and avoids any gather of remote edge data.
 
 Memory model (why node replication scales)
 ------------------------------------------
 Per device, the solver state is ``O(m/D)`` edge data + ``O(n)`` replicated
-node data, with n×(4 Q + 3 rhs + 4×3 CG vectors) ≈ 20 floats/node:
-
-  =========  =========  ==============  =====================
-  views n    edges m    edge shard f32  replicated node state
-  =========  =========  ==============  =====================
-  2 k        8 k        ~9 KB × D       ~160 KB
-  50 k       250 k      ~280 KB × D     ~4 MB
-  1 M        5 M        ~5.5 MB × D     ~80 MB
-  =========  =========  ==============  =====================
-
-Even the 1M-view global problem replicates well under one HBM percent per
-chip, so the ``psum``-everything design holds to far beyond BASELINE
-config 5 (50k views); node sharding would only matter past ~50M views.
+node data, with n×(4 Q + 3 rhs + 4×3 CG vectors) ≈ 20 floats/node: about
+80 MB of replicated state for a 1M-view problem, so the
+``psum``-everything design holds to far beyond BASELINE config 5 (50k
+views); node sharding would only matter past tens of millions of views.
 
 Multi-host
 ----------
-For problems spanning hosts (DCN), call :func:`init_multihost` first (a
+For problems spanning hosts, call :func:`init_multihost` first (a
 thin `jax.distributed.initialize` wrapper), then build the mesh with
 ``make_graph_mesh()`` — `jax.devices()` is the *global* device list in a
 multi-process run, and :func:`shard_graph` materialises only the shards a
 process can address (`jax.make_array_from_callback`).  The single ``psum``
-per CG matvec is XLA's hierarchical reduction: intra-slice hops ride ICI,
-one reduced block crosses DCN per host — exactly the layout the scaling
-recipe prescribes.
+per CG matvec is one all-reduce across every device of every process.
 
 This reproduces the semantics of the single-device solver in
 ``irotavg_tpu.solver.irls`` exactly (same masked math; the only difference
@@ -69,11 +58,11 @@ GRAPH_AXIS = "graph"
 def init_multihost(coordinator_address: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None, **kwargs):
-    """Join a multi-host run (DCN) and return (process_index, process_count).
+    """Join a multi-host run and return (process_index, process_count).
 
     Thin wrapper over ``jax.distributed.initialize``: with no arguments it
-    relies on the cluster environment (TPU pods auto-discover; GKE/SLURM
-    set the coordinator env vars).  Safe to call in a single-process run —
+    relies on the cluster environment (SLURM and similar schedulers set the
+    coordinator env vars).  Safe to call in a single-process run —
     it becomes a no-op and returns ``(0, 1)``.  After this,
     ``jax.devices()`` is the global device list and
     :func:`make_graph_mesh` / :func:`shard_graph` span the whole pod.
@@ -96,8 +85,8 @@ def make_graph_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """1-D mesh over the edge-parallel ``graph`` axis.
 
     In a multi-process run (after :func:`init_multihost`) this spans every
-    device in the pod; devices are kept in default order so edge-block
-    neighbours are ICI neighbours and the ``psum`` crosses DCN once.
+    device of every process, in JAX's default order; the mesh follows the
+    algorithm alone (one edge axis), not the interconnect.
     """
     if devices is None:
         devices = jax.devices()

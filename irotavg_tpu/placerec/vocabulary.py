@@ -105,7 +105,7 @@ class Vocabulary:
         The building block for pipelined callers (frontend/prefetch.py):
         queue descents for a whole look-ahead batch, fetch once, and
         assemble host-side with :meth:`assemble` — per-frame
-        ``transform`` would pay one blocking device round trip each.
+        ``transform`` would block on one device fetch each.
         """
         if valid is None:
             valid = jnp.ones((desc.shape[0],), bool)

@@ -1,4 +1,4 @@
-"""L2 — rotation-averaging solver (TPU-native replacement of ral/).
+"""L2 — rotation-averaging solver (array-native replacement of ral/).
 
 The reference solves robust rotation averaging with SuiteSparse direct
 factorizations inside two outer loops (ral/l1_irls.cpp: `l1ra` + `irls`).
@@ -6,7 +6,7 @@ Here the same outer iterations run under `jit` with:
 
   * the view graph as static-shaped arrays (`RotationGraph`);
   * the weighted least-squares step solved either by a dense batched
-    Cholesky of the masked graph Laplacian (MXU-friendly, small/medium n)
+    Cholesky of the masked graph Laplacian (small/medium n)
     or by matrix-free preconditioned CG whose SpMV is a segment-sum
     (scalable / shardable);
   * all 14 robust IRLS costs as a vectorised switch;

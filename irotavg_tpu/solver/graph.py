@@ -104,7 +104,7 @@ class RotationGraph:
 #
 # The reference materialises the m x (n-f) signed incidence matrix A
 # (`make_A`, ral/l1_irls.cpp:755-780): row k has +1 at column (j-f) and -1 at
-# column (i-f), with entries for fixed nodes dropped.  On TPU we never build A:
+# column (i-f), with entries for fixed nodes dropped.  Here we never build A:
 # we work in the *full* node space with variables zeroed on fixed nodes, which
 # is algebraically identical and keeps shapes independent of f.
 # ---------------------------------------------------------------------------
@@ -166,7 +166,7 @@ def laplacian_diag(edges, coef, free_mask, edge_mask, n):
 
 def laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=0.0):
     """Dense ``A.T diag(coef) A`` with Dirichlet (identity) rows/cols on fixed
-    nodes — ready for a single Cholesky factorization on the MXU.
+    nodes — ready for a single Cholesky factorization.
 
     Equivalent to the reference's Gram matrix of `make_A` columns restricted
     to free nodes (`make_AtA` trick, ral/l1_irls.cpp:811-848), embedded in

@@ -1,10 +1,10 @@
-"""IRLS robust rotation averaging (TPU-native `irls`, ral/l1_irls.cpp:559-752).
+"""IRLS robust rotation averaging (array-native `irls`, ral/l1_irls.cpp:559-752).
 
 Per outer iteration (all under one `jit`-compiled `lax.while_loop`):
   1. per-edge residual ``delta_rel`` -> tangent space via ``log_map``;
   2. solve the weighted least-squares ``min ||D (A W - w)||`` for the three
      tangent axes at once — as normal equations on the masked graph Laplacian
-     ``A' D^2 A`` (dense batched Cholesky on the MXU, or matrix-free Jacobi-CG);
+     ``A' D^2 A`` (dense batched Cholesky, or matrix-free Jacobi-CG);
   3. robust re-weighting from the post-solve residual ``E = A W - w`` using
      one of the 14 cost functions (formulas transcribed from the MATLAB
      comments at ral/l1_irls.cpp:617-727, including the clamping quirks);
@@ -14,8 +14,8 @@ Per outer iteration (all under one `jit`-compiled `lax.while_loop`):
 
 The reference solves the weighted LS with SuiteSparseQR on ``D A``
 (ral/l1_irls.cpp:536-556); normal equations halve the bits of precision, so
-callers on TPU should keep weights normalised (done internally) or use
-float64 on CPU for golden comparisons.
+f32 callers should keep weights normalised (done internally) or use
+float64 for golden comparisons.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""L1 rotation averaging (TPU-native `l1ra`, ral/l1_irls.cpp:851-912).
+"""L1 rotation averaging (array-native `l1ra`, ral/l1_irls.cpp:851-912).
 
 Outer Lie-algebra loop: residual -> log-map -> three independent scalar
 l1-minimisation problems ``min ||A x - y||_1`` (one per tangent axis,
@@ -6,10 +6,10 @@ ral/l1_irls.cpp:890-892) -> exp-map -> right-multiplied update.
 
 The inner decoder is the primal-dual interior-point method of l1-magic
 (`l1decode_pd`, ral/l1_irls.cpp:228-468; the MATLAB original is inlined there
-as comments, which we use as the spec).  TPU re-design:
+as comments, which we use as the spec).  Array re-design:
 
   * the three axes run as one `vmap`, so each Newton step factorises a
-    batched (3, n, n) SPD system on the MXU — the Newton matrix
+    batched (3, n, n) SPD system — the Newton matrix
     ``A' diag(sigx) A`` is SPD because ``sigx = sig1 - sig2^2/sig1`` is the
     Schur complement of the positive 2x2 block ``[[sig1, sig2], [sig2,
     sig1]]``  (``sig1^2 - sig2^2 = 4 lamu1 lamu2/(fu1 fu2) > 0``);
@@ -267,7 +267,7 @@ def l1ra_step(g: RotationGraph, cfg: L1RAConfig):
         cg_tol=cfg.cg_tol,
         cg_maxiter=cfg.cg_maxiter,
     )
-    X = jax.vmap(decode)(w3.T).T  # (n, 3); batched Newton solves on MXU
+    X = jax.vmap(decode)(w3.T).T  # (n, 3); batched Newton solves
 
     norms = jnp.linalg.norm(X, axis=-1)
     n_free = jnp.maximum(jnp.sum(free), 1)

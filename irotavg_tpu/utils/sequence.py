@@ -14,6 +14,8 @@ import os
 
 import numpy as np
 
+from irotavg_tpu.utils.png import read_gray
+
 
 class SequenceLoader:
     """Sorted (timestamp, path) iteration over a directory of images."""
@@ -54,8 +56,5 @@ class SequenceLoader:
 
 
 def load_gray(path: str) -> np.ndarray:
-    """Read an image file as grayscale uint8 (H, W)."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("L"), np.uint8)
+    """Read a PNG or binary PGM file as grayscale uint8 (H, W)."""
+    return read_gray(path)

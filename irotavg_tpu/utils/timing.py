@@ -5,7 +5,7 @@ The reference's observability is `clock()` brackets printing per-frame
 (src/IRotAvg.cpp:258,273-274,356-357,379-383) and solver runtime
 out-params (ral/l1_irls.cpp:581-583,741-743).  This module keeps that
 per-frame timing line as a compatible observable and adds structured
-aggregation plus an optional `jax.profiler` trace context for TPU-level
+aggregation plus an optional `jax.profiler` trace context for device-level
 profiling.
 """
 

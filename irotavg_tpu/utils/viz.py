@@ -2,8 +2,8 @@
 
 The reference pops cv::imshow windows with cv::drawMatches output
 unconditionally inside processFrame and on loop closures (`plotMatches` /
-`myPlotMatches`, src/IRotAvg.cpp:93-107; src/ViewGraph.cpp:653-667).  A TPU
-deployment is headless, so the same observable — the two frames side by
+`myPlotMatches`, src/IRotAvg.cpp:93-107; src/ViewGraph.cpp:653-667).  A
+server deployment is headless, so the same observable — the two frames side by
 side with keypoint marks and match lines — is rendered to an RGB array
 with pure numpy and optionally written to a PNG.  Enable from the CLI with
 ``--plot_matches DIR``.
@@ -12,6 +12,8 @@ with pure numpy and optionally written to a PNG.  Enable from the CLI with
 from __future__ import annotations
 
 import numpy as np
+
+from irotavg_tpu.utils.png import write_png
 
 # A small qualitative palette so neighbouring lines are distinguishable
 # (cv::drawMatches uses random colours; fixed palette keeps output
@@ -99,10 +101,8 @@ def draw_matches(im1, xy1, im2, xy2, pairs, max_lines: int = 500
 
 
 def save_png(path: str, image: np.ndarray) -> None:
-    """Write an image array to PNG (PIL)."""
-    from PIL import Image
-
-    Image.fromarray(np.asarray(image)).save(path)
+    """Write a gray or RGB(A) uint8 image array to PNG."""
+    write_png(path, image)
 
 
 def plot_matches(frame1, frame2, pairs, path: str | None = None,

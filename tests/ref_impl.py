@@ -1,11 +1,12 @@
-"""Independent NumPy/SciPy oracle for the rotation-averaging solvers.
+"""Independent NumPy/SciPy oracles for the rotation-averaging solvers and
+the descriptor matcher.
 
 This is a from-the-math transcription of the MATLAB algorithms that the
 reference C++ inlines as comments (l1-magic's l1decode_pd; the IRLS weight
 table).  It deliberately uses a different numerical stack (scipy.sparse
 direct solves) than both the C++ (SuiteSparse) and the JAX implementation,
 so agreement between this oracle and irotavg_tpu is strong evidence of
-algorithmic fidelity.  Used only by tests.
+algorithmic fidelity.  Used by the tests and by chip_smoke.py.
 """
 
 import numpy as np
@@ -251,3 +252,31 @@ def irls(QQ, edges, A, cost, sigma, Q, f, max_iters, change_th):
         Q[f:] = qmul(Q[f:], W)
         it += 1
     return Q, weights, it, score
+
+
+def best2(gate, d1, d2, rowf, colft, big=10_000.0):
+    """Gated best/second-best Hamming match by XOR + popcount over the 8
+    descriptor words, with the gate rules of ``ops/hamming.gate_mask``
+    written out in f32 numpy.  Returns (d1, d2, idx) like ``best2``."""
+    D = np.bitwise_count(d1[:, None, :] ^ d2[None, :, :]).sum(-1)
+    r = [np.asarray(rowf, np.float32)[:, k:k + 1] for k in range(8)]
+    c = [np.asarray(colft, np.float32)[k:k + 1, :] for k in range(8)]
+    mask = (r[0] > 0) & (c[0] > 0)
+    if gate in ("node", "epipolar"):
+        mask &= r[1] == c[1]
+    if gate == "local":
+        mask &= (np.abs(c[2] - r[2]) <= r[5]) & (np.abs(c[3] - r[3]) <= r[5])
+        mask &= (c[4] >= np.maximum(r[4] - 2, 0)) & \
+                (c[4] <= np.minimum(r[4] + 2, 7))
+    if gate.startswith("epipolar"):
+        num = c[5] * r[2] + c[6] * r[3] + c[7]
+        mask &= num * num < r[5] * (c[5] * c[5] + c[6] * c[6])
+    Dm = np.where(mask, D, big).astype(np.float32)
+    n1 = len(d1)
+    if Dm.shape[1] == 0:
+        return np.full(n1, big), np.full(n1, big), np.full(n1, -1)
+    rows = np.arange(n1)
+    i1 = np.argmin(Dm, axis=1)
+    best = Dm[rows, i1]
+    Dm[rows, i1] = big
+    return best, Dm.min(axis=1), np.where(best >= big, -1, i1)

@@ -1,7 +1,7 @@
 """Synthetic image-sequence generators with known camera trajectories.
 
-Renders textured 3-D planes through a moving pinhole camera (projected
-quads via cv2.getPerspectiveTransform), giving real parallax so essential-
+Renders textured 3-D planes through a moving pinhole camera (each quad is
+a homography warp of its texture), giving real parallax so essential-
 matrix geometry is well-posed.  Ground-truth rotations are returned for
 trajectory-error checks — the stand-in for KITTI in this environment
 (no dataset access; see BASELINE.md config 3).
@@ -21,25 +21,112 @@ Two worlds:
 Optional degradations on both: sensor noise, optical blur, radial lens
 distortion (k1/k2 — the caller must build its Camera with the same
 coefficients so the undistortKeypoints path runs, src/Frame.cpp:102-139).
+
+The renderer is numpy + scipy only, so every machine renders the same
+frames.  Its primitives follow OpenCV's definitions (the library the
+reference links): ``GaussianBlur`` kernel radius and REFLECT_101 border,
+inclusive filled rectangles, filled discs ``d^2 <= r^2``, bilinear warps
+on a 1/32-pixel coordinate grid with a zero border (``warpPerspective``)
+or an edge-replicating one (``remap``).
 """
 
-import cv2
 import numpy as np
+from scipy.ndimage import gaussian_filter
 from scipy.spatial.transform import Rotation as Rsc
 
 
+def _blur(img, sigma):
+    """``cv2.GaussianBlur(img, (0, 0), sigma)`` for uint8 images."""
+    radius = int(round(sigma * 6 + 1)) // 2      # cvRound(6 sigma + 1) | 1
+    out = gaussian_filter(img.astype(np.float64), sigma, mode="mirror",
+                          radius=radius)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
 def _texture(rng, size=400):
-    tex = rng.integers(60, 200, (size, size), np.uint8)
-    tex = cv2.GaussianBlur(tex, (0, 0), 1.2)
+    tex = _blur(rng.integers(60, 200, (size, size), np.uint8), 1.2)
     for _ in range(60):
         p = rng.integers(10, size - 30, 2)
         w, h = rng.integers(6, 30, 2)
-        cv2.rectangle(tex, tuple(p), (int(p[0] + w), int(p[1] + h)),
-                      int(rng.integers(0, 255)), -1)
+        tex[p[1]:p[1] + h + 1, p[0]:p[0] + w + 1] = int(rng.integers(0, 255))
+    yy, xx = np.mgrid[:size, :size]
     for _ in range(40):
-        c = tuple(int(v) for v in rng.integers(15, size - 15, 2))
-        cv2.circle(tex, c, int(rng.integers(3, 12)), int(rng.integers(0, 255)), -1)
+        cx, cy = (int(v) for v in rng.integers(15, size - 15, 2))
+        r = int(rng.integers(3, 12))
+        tex[(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = int(rng.integers(0, 255))
     return tex
+
+
+def _homography(src, dst):
+    """The 3x3 H with H @ [src, 1] ~ [dst, 1] for 4 point pairs
+    (``cv2.getPerspectiveTransform``)."""
+    A = np.zeros((8, 8))
+    b = np.zeros(8)
+    for k, ((x, y), (u, v)) in enumerate(zip(src, dst)):
+        A[2 * k] = [x, y, 1, 0, 0, 0, -u * x, -u * y]
+        A[2 * k + 1] = [0, 0, 0, x, y, 1, -v * x, -v * y]
+        b[2 * k], b[2 * k + 1] = u, v
+    return np.append(np.linalg.solve(A, b), 1.0).reshape(3, 3)
+
+
+def _bilinear(img, xs, ys, replicate):
+    """Sample ``img`` at float coordinates, OpenCV INTER_LINEAR style.
+
+    Returns (values, coverage): with ``replicate`` the border pixels
+    extend outward (BORDER_REPLICATE) and coverage is all ones; otherwise
+    outside pixels read 0 (BORDER_CONSTANT) and coverage is the bilinear
+    weight that fell inside the image.
+    """
+    h, w = img.shape
+    xs = np.round(xs * 32.0) / 32.0               # INTER_BITS = 5
+    ys = np.round(ys * 32.0) / 32.0
+    x0 = np.floor(xs)
+    y0 = np.floor(ys)
+    fx = xs - x0
+    fy = ys - y0
+    x0 = x0.astype(np.int64)
+    y0 = y0.astype(np.int64)
+    val = np.zeros(xs.shape)
+    cov = np.zeros(xs.shape)
+    for dy, wy in ((0, 1.0 - fy), (1, fy)):
+        for dx, wx in ((0, 1.0 - fx), (1, fx)):
+            xi, yi = x0 + dx, y0 + dy
+            wgt = wx * wy
+            if replicate:
+                inside = np.ones(xs.shape, bool)
+            else:
+                inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            pix = img[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)]
+            val += np.where(inside, wgt * pix, 0.0)
+            cov += np.where(inside, wgt, 0.0)
+    return val, cov
+
+
+def _warp_quad(canvas, tex, H):
+    """Paint ``tex`` warped by H over ``canvas`` where the warped texture
+    mask exceeds 128 of 255 (``warpPerspective`` of the texture and of an
+    all-255 mask, both INTER_LINEAR)."""
+    h, w = canvas.shape
+    th, tw = tex.shape
+    corners = np.array([[0, 0, 1], [tw, 0, 1], [tw, th, 1], [0, th, 1]],
+                       float) @ H.T
+    corners = corners[:, :2] / corners[:, 2:3]
+    x_lo = max(int(np.floor(corners[:, 0].min())) - 2, 0)
+    x_hi = min(int(np.ceil(corners[:, 0].max())) + 3, w)
+    y_lo = max(int(np.floor(corners[:, 1].min())) - 2, 0)
+    y_hi = min(int(np.ceil(corners[:, 1].max())) + 3, h)
+    if x_lo >= x_hi or y_lo >= y_hi:
+        return
+    u, v = np.meshgrid(np.arange(x_lo, x_hi, dtype=np.float64),
+                       np.arange(y_lo, y_hi, dtype=np.float64))
+    Hi = np.linalg.inv(H)
+    den = Hi[2, 0] * u + Hi[2, 1] * v + Hi[2, 2]
+    xs = (Hi[0, 0] * u + Hi[0, 1] * v + Hi[0, 2]) / den
+    ys = (Hi[1, 0] * u + Hi[1, 1] * v + Hi[1, 2]) / den
+    val, cov = _bilinear(tex, xs, ys, replicate=False)
+    sub = canvas[y_lo:y_hi, x_lo:x_hi]
+    paint = np.rint(cov * 255.0) > 128
+    sub[paint] = np.clip(np.rint(val[paint]), 0, 255).astype(np.uint8)
 
 
 def _distortion_maps(K, k1, k2, size):
@@ -83,18 +170,14 @@ def _render_frame(planes, R, t, K, size, rng, dist_maps,
         src = np.array([[0, 0], [tex.shape[1], 0],
                         [tex.shape[1], tex.shape[0]], [0, tex.shape[0]]],
                        np.float32)
-        H = cv2.getPerspectiveTransform(src, proj.astype(np.float32))
-        warped = cv2.warpPerspective(tex, H, (w, h), flags=cv2.INTER_LINEAR)
-        mask = cv2.warpPerspective(
-            np.full(tex.shape, 255, np.uint8), H, (w, h)
-        )
-        canvas = np.where(mask > 128, warped, canvas)
+        _warp_quad(canvas, tex,
+                   _homography(src, proj.astype(np.float32).astype(float)))
     if dist_maps is not None:
-        canvas = cv2.remap(canvas, dist_maps[0], dist_maps[1],
-                           cv2.INTER_LINEAR,
-                           borderMode=cv2.BORDER_REPLICATE)
+        val, _ = _bilinear(canvas, dist_maps[0], dist_maps[1],
+                           replicate=True)
+        canvas = np.clip(np.rint(val), 0, 255).astype(np.uint8)
     if blur_sigma > 0:
-        canvas = cv2.GaussianBlur(canvas, (0, 0), blur_sigma)
+        canvas = _blur(canvas, blur_sigma)
     if noise_sigma > 0:
         canvas = np.clip(
             canvas.astype(np.float32)

@@ -13,34 +13,36 @@ import json
 import bench
 
 
+# made-up values with the width of real ones (the line-length checks
+# below depend on how many digits each field prints)
 FULL_SECTIONS = {
     "e2e": {
-        "fps_warm": 16.89, "fps_cold": 2.41, "rotation_rmse_deg": 0.7231,
-        "rotation_rmse_deg_noloop": 5.8213, "loop_gain": 8.05,
-        "loop_edges": 87, "vocab_words": 100000,
+        "fps_warm": 12.34, "fps_cold": 5.67, "rotation_rmse_deg": 0.1234,
+        "rotation_rmse_deg_noloop": 1.2345, "loop_gain": 9.87,
+        "loop_edges": 65, "vocab_words": 100000,
     },
     "incremental": {
-        "fps": 1.95, "fps_steady": 13.75, "rotation_rmse_deg": 0.0692,
-        "loop_edges": 3, "rotavg_ms_p50": 1.0, "vocab_words": 100000,
+        "fps": 4.32, "fps_steady": 21.09, "rotation_rmse_deg": 0.5432,
+        "loop_edges": 7, "rotavg_ms_p50": 3.2, "vocab_words": 100000,
     },
     "windows": {
-        "windows_per_s": 1413.8, "vs_oracle": 37.1,
-        "mean_err_vs_gt_deg": 1.803, "chol_knee_W": 24576,
-        "chol_knee_solves_per_s": 562067.0,
+        "windows_per_s": 9876.5, "vs_oracle": 43.2,
+        "mean_err_vs_gt_deg": 1.234, "chol_knee_W": 24576,
+        "chol_knee_solves_per_s": 987654.0,
     },
     "vocab": {
-        "production_scale": {"n_words": 10 ** 6, "text_mb": 144.3,
-                             "native_parse_s": 0.68},
-        "transform_desc_per_s": 362988.0, "cascade_query_ms": 6.14,
+        "production_scale": {"n_words": 10 ** 6, "text_mb": 123.4,
+                             "native_parse_s": 0.98},
+        "transform_desc_per_s": 876543.0, "cascade_query_ms": 4.32,
     },
     "large": {
-        "n_views": 50000, "solve_s": 12.583, "converged": True,
-        "mean_err_vs_gt_deg": 3.771,
+        "n_views": 50000, "solve_s": 10.987, "converged": True,
+        "mean_err_vs_gt_deg": 2.345,
     },
     "scaling": {
         "by_size": {
-            "20k": {"by_devices": {"8": {"work_conservation": 0.775}}},
-            "50k": {"by_devices": {"8": {"work_conservation": 0.735}}},
+            "20k": {"by_devices": {"8": {"work_conservation": 0.876}}},
+            "50k": {"by_devices": {"8": {"work_conservation": 0.765}}},
         },
     },
 }
@@ -64,9 +66,9 @@ def test_compact_projections_pass_through_errors():
 def test_merged_line_fits_the_driver_tail_cap():
     compact = {
         "metric": "batch_ravg_solve_ms_m3655_n1832", "unit": "ms",
-        "platform": "tpu", "budget_s": 900.0, "detail": "BENCH_FULL.json",
-        "skipped": [], "value": 11.55, "vs_baseline": 2.288,
-        "quality_ok": True, "elapsed_s": 622.8,
+        "platform": "gpu", "budget_s": 900.0, "detail": "BENCH_FULL.json",
+        "skipped": [], "value": 12.34, "vs_baseline": 5.678,
+        "quality_ok": True, "elapsed_s": 654.3,
         "sections": {n: bench._compact_of(n, f)
                      for n, f in FULL_SECTIONS.items()},
     }

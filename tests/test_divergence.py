@@ -1,6 +1,6 @@
 """Quantified front-end divergences vs the reference's algorithms.
 
-The TPU front-end intentionally diverges from the reference in two
+The front-end intentionally diverges from the reference in two
 places (both noted in SURVEY.md section 7 "hard parts"); these tests put
 asserted numbers on each divergence instead of leaving it anecdotal:
 

@@ -1,10 +1,10 @@
-"""True multi-process distributed solve (DCN-analogue on CPU/Gloo).
+"""True multi-process distributed solve (CPU/Gloo).
 
 The virtual 8-device mesh exercises the sharded program but runs in ONE
 process; this test runs the REAL multi-host path: two OS processes, one
 CPU device each, joined via ``init_multihost`` (jax.distributed — the
-coordinator/Gloo transport stands in for DCN), a global 2-device mesh,
-cross-process ``psum`` collectives, and the full distributed
+coordinator/Gloo transport stands in for the interconnect), a global
+2-device mesh, cross-process ``psum`` collectives, and the full distributed
 L1-warmup + robust-IRLS pipeline.  Process 0's solution must match the
 single-process solver on the identical problem and schedule — closing
 the one SURVEY component (distributed backend) that had only

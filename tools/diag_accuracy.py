@@ -95,9 +95,8 @@ def main():
 
     # loop closure with a quick vocab (or the cached product vocab)
     vocab = None
-    cache = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "irotavg_tpu", "product_vocab_k10_L5_v1.txt")
+    cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), ".bench_cache", "product_vocab_k10_L5_v1.txt")
     if os.path.exists(cache):
         from irotavg_tpu.placerec.vocabulary import Vocabulary
 
